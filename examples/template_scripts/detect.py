@@ -44,8 +44,8 @@ scan = QuakeScan(
 )
 
 scan.timestep = 2.5
-# TPU execution options:
+# Device execution options:
 # scan.precision = "single"   # float32 device compute (default)
-# scan.mesh = quakemigrate_tpu.parallel.make_mesh()  # shard grid over chips
+# scan.mesh = quakemigrate_tpu.parallel.make_mesh()  # shard grid over GPUs
 
 scan.detect(starttime, endtime)

@@ -1,12 +1,12 @@
 # -*- coding: utf-8 -*-
 """
-quakemigrate_tpu -- TPU-native earthquake detection and location by
-waveform migration and stacking.
+quakemigrate_tpu -- earthquake detection and location by waveform
+migration and stacking, on NVIDIA GPUs.
 
 A ground-up re-implementation of the QuakeMigrate method
-(QuakeMigrate/QuakeMigrate) designed for TPU hardware: the migration and
-stacking compute core runs as fused JAX/XLA/Pallas device programs with the
-3-D search grid shardable across a device mesh, while waveform I/O,
+(QuakeMigrate/QuakeMigrate) for accelerators: the migration and stacking
+compute core runs as fused JAX/XLA/Pallas device programs with the 3-D
+search grid shardable across a device mesh, while waveform I/O,
 triggering and magnitude estimation run host-side on a native seismic data
 layer (no ObsPy/pyproj dependency).
 

@@ -8,67 +8,80 @@ Provides ctypes bindings to:
   the host throughput path.
 - A fast-marching eikonal solver (fmmlib.c) for traveltime LUT generation.
 
-The shared library is compiled on first import if missing (cc -O2); all
-callers gracefully fall back to pure-Python implementations if no compiler
-is available.
+The shared library is compiled on first import whenever no build of the
+current sources exists (its file name carries their content hash); the
+STEIM codec falls back to pure Python if no compiler is available, which
+:func:`native_available` reports.
 
-The TPU compute path (migration/stacking, onset functions) intentionally
-does NOT live here -- it is implemented as JAX/Pallas programs in
-quakemigrate_tpu.ops.
+The device compute path (migration/stacking, onset functions)
+intentionally does NOT live here -- it is implemented as JAX/Pallas
+programs in quakemigrate_tpu.ops.
 
 """
 
 import ctypes
+import hashlib
 import logging
+import os
 import pathlib
+import platform
 import subprocess
+import sys
 
 import numpy as np
 import numpy.ctypeslib as clib
 
 _SRC_DIR = pathlib.Path(__file__).parent / "src"
 _LIB_DIR = pathlib.Path(__file__).parent / "lib"
-_LIB_PATH = _LIB_DIR / "libqmtpu.so"
 
 _SOURCES = ["steimlib.c", "fmmlib.c"]
+# The STEIM codec's difference/accumulator arithmetic relies on int32
+# wraparound, which is UB without -fwrapv.
+_CFLAGS = ["-O2", "-fwrapv", "-shared", "-fPIC"]
+
+
+def _source_hash():
+    """Content hash of the sources, the build flags and the host's
+    machine type: the library's name carries it, so a library built from
+    other sources (or copied from another kind of host) is never loaded."""
+
+    digest = hashlib.sha256()
+    for name in _SOURCES:
+        digest.update(name.encode())
+        digest.update((_SRC_DIR / name).read_bytes())
+    digest.update(" ".join(_CFLAGS).encode())
+    digest.update(f"{sys.platform}-{platform.machine()}".encode())
+    return digest.hexdigest()[:16]
+
+
+_LIB_PATH = _LIB_DIR / f"libqmtpu-{_source_hash()}.so"
 
 
 def _build_library():
-    """Compile the native sources into a shared library."""
+    """Compile the native sources into ``_LIB_PATH``; drop stale builds."""
 
     _LIB_DIR.mkdir(exist_ok=True)
     sources = [str(_SRC_DIR / s) for s in _SOURCES]
+    tmp = _LIB_PATH.with_suffix(f".{os.getpid()}.tmp")
     for compiler in ("cc", "gcc", "clang"):
-        cmd = [
-            compiler,
-            "-O2",
-            # The STEIM codec's difference/accumulator arithmetic relies
-            # on int32 wraparound, which is UB without this flag
-            "-fwrapv",
-            "-shared",
-            "-fPIC",
-            "-o",
-            str(_LIB_PATH),
-            *sources,
-            "-lm",
-        ]
+        cmd = [compiler, *_CFLAGS, "-o", str(tmp), *sources, "-lm"]
         try:
             subprocess.run(cmd, check=True, capture_output=True)
-            return True
         except (subprocess.CalledProcessError, FileNotFoundError) as exc:
             logging.debug(f"Native build with {compiler} failed: {exc}")
+            continue
+        # Atomic: a concurrent importer sees either no library or all of it
+        os.replace(tmp, _LIB_PATH)
+        for stale in _LIB_DIR.glob("libqmtpu*.so"):
+            if stale != _LIB_PATH:
+                stale.unlink(missing_ok=True)
+        return True
     return False
 
 
 def _load_library():
-    if not _LIB_PATH.exists():
-        # Rebuild if any source is newer than the library too
-        if not _build_library():
-            return None
-    else:
-        newest_src = max((_SRC_DIR / s).stat().st_mtime for s in _SOURCES)
-        if newest_src > _LIB_PATH.stat().st_mtime:
-            _build_library()
+    if not _LIB_PATH.exists() and not _build_library():
+        return None
     try:
         return ctypes.CDLL(str(_LIB_PATH))
     except OSError:

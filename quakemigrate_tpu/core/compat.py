@@ -4,7 +4,7 @@ Reference-shaped compute bindings.
 
 The reference exposes its C kernels as public Python functions
 (``quakemigrate.core.migrate`` / ``find_max_coa`` / the three STA/LTA
-variants, reference core/lib.py:52-285). The TPU build's equivalents live
+variants, reference core/lib.py:52-285). This package's equivalents live
 in :mod:`quakemigrate_tpu.ops` as JAX programs with device-native layouts
 (flattened node axis, fused reductions); these wrappers re-express them
 under the reference call signatures — numpy in, numpy out, 4-D map layout

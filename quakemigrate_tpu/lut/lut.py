@@ -11,7 +11,7 @@ serving for the migration kernel. Projections come from
 
 ``serve_traveltimes`` keeps the reference's (nx, ny, nz, n_onsets) layout at
 the API boundary; the scan engine flattens to the node-major
-[n_nodes, n_onsets] layout the TPU kernel wants.
+[n_nodes, n_onsets] layout the migration kernels want.
 
 Pickle layout note: instance attribute names (``_node_count``,
 ``_node_spacing``, ``ll_corner``, ``traveltimes``, ...) are part of the

@@ -3,9 +3,9 @@
 Migration / coalescence-stacking device programs -- the heart of the scan
 engine.
 
-These are the TPU-native replacements for the reference's C/OpenMP kernels
-``migrate`` and ``find_max_coa`` (migratelib.c:40-111), redesigned rather
-than translated:
+These replace the reference's C/OpenMP kernels ``migrate`` and
+``find_max_coa`` (migratelib.c:40-111), redesigned rather than
+translated:
 
 - The onset functions are clipped and moved to the log domain on-device, so
   the geometric-mean stack is a masked arithmetic mean of logs followed by a
@@ -14,8 +14,11 @@ than translated:
   with a float mask [O_max], so station availability changes do NOT trigger
   recompilation (the reference rebuilds the traveltime stack per timestep).
 - detect mode fuses the per-sample max/argmax/sum grid reduction into the
-  node-tile loop, so the 4-D coalescence map NEVER materialises in HBM
+  stack, so the 4-D coalescence map NEVER materialises in device memory
   (the reference allocates then immediately frees it, scan.py:635-642).
+  On a GPU this is one Pallas kernel (ops.gather_migrate) that gathers
+  straight from the onset rows; elsewhere, and in float64, it is the XLA
+  shift-table program below.
 - locate mode retains the (flattened) map4d for marginalisation.
 
 Tie-breaking matches the C kernel: the FIRST node index achieving the
@@ -31,8 +34,12 @@ from functools import partial
 import jax
 import jax.numpy as jnp
 
-# Node-tile size for the fused detect reduction. Multiple of 8*128 so tiles
-# map cleanly onto TPU (sublane, lane) vector registers.
+from .gather_migrate import gather_detect_reduce
+
+# Node-tile size of the XLA shift-table programs (locate's map and
+# marginalisation, float64 detect, CPU hosts). Swept over 1024-8192 on an
+# H100 (PERF.md): 8192 shaves ~3% off a detect window, but locate per
+# event was fastest at 2048-4096 and slowest at 8192, so 4096 stays.
 DEFAULT_TILE = 4096
 
 MIN_ONSET_CLIP = 0.01  # matches reference core/lib.py:93
@@ -50,10 +57,10 @@ def _build_shift_table(onsets_log, fsmp, nsamples):
     Materialise every possible shifted scan window of each onset row:
     H[o, d, s] = onsets_log[o, fsmp + d + s] for d in [0, T - fsmp - S].
 
-    This turns the migration's per-node dynamic-offset reads into row
-    gathers from H -- TPUs vectorise whole-row gathers efficiently, whereas
-    per-element gathers scalarise. H is ~O x lsmp x S floats (tens of MB),
-    built once per device call with a cheap scan of contiguous slices.
+    This turns the migration's per-node dynamic-offset reads into whole-row
+    gathers from H, which XLA vectorises on every backend. H is
+    ~O x lsmp x S floats (tens of MB for a short window), built once per
+    device call with a scan of contiguous slices.
 
     """
 
@@ -73,7 +80,7 @@ def _build_shift_table(onsets_log, fsmp, nsamples):
 
 
 _ONSET_GROUP = 4  # onsets accumulated per scan step (cuts accumulator
-                  # HBM round-trips by the same factor)
+                  # round-trips through device memory by the same factor)
 
 
 def _stack_tile(shift_table, d_max, tt_tile, mask, available):
@@ -86,7 +93,7 @@ def _stack_tile(shift_table, d_max, tt_tile, mask, available):
 
     The scan runs over onset *groups*: each step gathers and adds
     _ONSET_GROUP rows so the [Nt, S] accumulator makes 1/group as many
-    HBM round-trips.
+    round-trips through device memory.
 
     """
 
@@ -134,10 +141,40 @@ def detect_reduce(
 
     Returns (max_coa [S], max_idx [S] global indices, coa_sum [S]).
 
+    Float32 inputs run the Pallas gather kernel when compiled for a GPU and
+    the XLA shift-table program otherwise; float64 always runs XLA.
+
     """
 
-    n_total = traveltimes.shape[0]
     onsets_log = _prepare_onsets(onsets, mask)
+    available = jnp.asarray(available, onsets_log.dtype)
+    node_offset = jnp.asarray(node_offset, jnp.int32)
+    xla = partial(
+        _detect_reduce_xla, fsmp=fsmp, nsamples=nsamples,
+        n_nodes_real=n_nodes_real, tile=tile,
+    )
+    if onsets_log.dtype != jnp.float32:
+        return xla(onsets_log, traveltimes, mask, available, node_offset)
+
+    def gather(onsets_log, traveltimes, mask, available, node_offset):
+        return gather_detect_reduce(
+            onsets_log, traveltimes, available, fsmp, nsamples,
+            n_nodes_real, node_offset=node_offset,
+        )
+
+    # The compile target picks the program: only the branch for the
+    # platform being compiled for is lowered.
+    return jax.lax.platform_dependent(
+        onsets_log, traveltimes, mask, available, node_offset,
+        cuda=gather, default=xla,
+    )
+
+
+def _detect_reduce_xla(onsets_log, traveltimes, mask, available, node_offset,
+                       fsmp, nsamples, n_nodes_real, tile):
+    """detect_reduce as the XLA shift-table program (log-domain onsets)."""
+
+    n_total = traveltimes.shape[0]
     dtype = onsets_log.dtype
     shift_table, d_max = _build_shift_table(onsets_log, fsmp, nsamples)
 
@@ -146,7 +183,6 @@ def detect_reduce(
     tt_tiles = jnp.pad(traveltimes, ((0, pad), (0, 0))).reshape(n_tiles, tile, -1)
 
     node_idx_base = jnp.arange(tile, dtype=jnp.int32)
-    node_offset = jnp.asarray(node_offset, dtype=jnp.int32)
 
     def tile_body(carry, inputs):
         running_max, running_idx, running_sum = carry
@@ -240,12 +276,8 @@ def migrate_detect_batch(
     ``onsets`` [B, O, T], ``mask`` [B, O], ``available`` [B]; the
     traveltime table is shared. Returns per-window [B, S] outputs.
 
-    NOTE: on current TPU/XLA the vmapped (batched) row gather lowers to a
-    slower path than B sequential calls (~82 vs ~64 ms/window measured on
-    v5e for the Icequake geometry), so this is only a win when per-call
-    host overhead dominates (very small grids). Sharding windows over a
-    mesh "batch" axis (quakemigrate_tpu.parallel) is the preferred way to
-    parallelise windows.
+    Sharding windows over a mesh "batch" axis (quakemigrate_tpu.parallel)
+    is the other way to parallelise windows.
 
     """
 
@@ -320,7 +352,9 @@ def migrate_marginalise(
 
     def tile_body(_, tt_tile):
         coa = _stack_tile(shift_table, d_max, tt_tile, mask, available)
-        return None, coa @ in_window
+        # A masked sum, not a matrix product: a float32 product may run
+        # in reduced precision (TF32) on GPUs.
+        return None, jnp.sum(coa * in_window, axis=1)
 
     _, sums = jax.lax.scan(tile_body, None, tt_tiles)
     return sums.reshape(n_tiles * tile)[:n_total]

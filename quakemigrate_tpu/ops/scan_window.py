@@ -87,17 +87,16 @@ def _sta_lta_dynamic(signal, nsta, nlta, position):
 def pack_detect_window(max_coa, max_norm_coa, max_idx):
     """
     Pack a detect window's three per-sample outputs into ONE [3, S] array
-    so the host pays a single fetch round-trip per window instead of
-    three (each fetch costs a full RTT on remote-device relays).
+    so the host pays one device-to-host transfer per window instead of
+    three.
 
     The packed array is INTEGER-typed: the coalescence floats are bitcast
-    into same-width int bits. The (tempting) inverse -- bitcasting the
-    indices into float bits -- corrupts data on TPU: every node index
-    below 2^23 is a float32 *subnormal* bit pattern, and the TPU flushes
-    subnormals to zero in any vector op that moves the packed array, so
-    every argmax silently became node 0 (found as grid-corner X/Y/Z in a
-    whole day's scanmseed). Integer lanes are never flushed or
-    NaN-canonicalised, so float-bits-in-int is the safe direction.
+    into same-width int bits. The inverse -- bitcasting the indices into
+    float bits -- is unsafe: every node index below 2^23 is a float32
+    *subnormal* bit pattern, which a backend may flush to zero in any
+    vector op that moves the packed array. Integer lanes are never
+    flushed or NaN-canonicalised, so float-bits-in-int is the safe
+    direction.
 
     """
 
@@ -261,68 +260,3 @@ def detect_window_fused(
         n_real, tile,
     )
     return max_coa, max_coa * n_real / coa_sum, max_idx
-
-
-@partial(
-    jax.jit,
-    static_argnames=(
-        "position", "transform", "min_onset_value", "fsmp", "nsamples",
-        "tile", "r_spans", "n_nodes_real", "sblk", "interpret", "precision",
-    ),
-)
-def detect_window_fused_mxu(
-    channels, chan_mask, slot_mask, nsta, nlta,
-    fine_t, base, valid, perm,
-    position, transform, min_onset_value, fsmp, nsamples,
-    tile, r_spans, n_nodes_real, sblk=None, interpret=False,
-    precision="i8x3",
-):
-    """
-    Fully-fused detect window with the Pallas MXU migration kernel
-    (ops.pallas_migrate.mxu_detect_reduce) in place of the XLA shift-table
-    reduce. Same contract as detect_window_fused.
-
-    """
-
-    from .pallas_migrate import mxu_detect_reduce
-
-    combined, available = fused_onsets(
-        channels, chan_mask, slot_mask, nsta, nlta,
-        position, transform, min_onset_value,
-    )
-    max_coa, max_idx, coa_sum = mxu_detect_reduce(
-        combined, slot_mask, available, fine_t, base, valid, perm,
-        fsmp, nsamples, tile, r_spans, n_nodes_real, sblk=sblk,
-        interpret=interpret, precision=precision,
-    )
-    return max_coa, max_coa * n_nodes_real / coa_sum, max_idx
-
-
-@partial(
-    jax.jit,
-    static_argnames=(
-        "nsmooth", "taper_pad", "min_onset_value", "fsmp", "nsamples",
-        "tile", "r_spans", "n_nodes_real", "sblk", "interpret", "precision",
-    ),
-)
-def detect_window_fused_kurtosis_mxu(
-    channels, chan_mask, slot_mask, nkurt,
-    fine_t, base, valid, perm,
-    nsmooth, taper_pad, min_onset_value, fsmp, nsamples,
-    tile, r_spans, n_nodes_real, sblk=None, interpret=False,
-    precision="i8x3",
-):
-    """Kurtosis twin of detect_window_fused_mxu."""
-
-    from .pallas_migrate import mxu_detect_reduce
-
-    combined, available = fused_kurtosis_onsets(
-        channels, chan_mask, slot_mask, nkurt, nsmooth, taper_pad,
-        min_onset_value,
-    )
-    max_coa, max_idx, coa_sum = mxu_detect_reduce(
-        combined, slot_mask, available, fine_t, base, valid, perm,
-        fsmp, nsamples, tile, r_spans, n_nodes_real, sblk=sblk,
-        interpret=interpret, precision=precision,
-    )
-    return max_coa, max_coa * n_nodes_real / coa_sum, max_idx

@@ -12,7 +12,7 @@ Semantics mirror the reference C kernels exactly (onsetlib.c:35-148):
 - "recursive": exponential-decay recursion; first nlta samples nulled to 1.
 
 All variants are expressed with cumulative sums (the recursion via an
-associative scan), so they vectorise onto the TPU VPU and batch over
+associative scan), so they vectorise on any backend and batch over
 channels. Division-by-zero yields the null result 1, following the
 reference's Python backends (stalta.py:25-134).
 

@@ -1,13 +1,14 @@
 # -*- coding: utf-8 -*-
 """
-quakemigrate_tpu.parallel -- multi-chip execution of the scan engine.
+quakemigrate_tpu.parallel -- multi-device execution of the scan engine.
 
 The 3-D search grid's node axis is the natural parallel axis (the reference
 parallelises the same axis with OpenMP threads on one host,
 migratelib.c:49-51). Here it shards across a JAX device mesh: each device
 owns a slab of grid nodes (a slab of the traveltime table) plus a replicated
 copy of the (small) onset block, computes its local fused migrate+reduce,
-and the per-sample max/argmax/sum combine rides the ICI:
+and the per-sample max/argmax/sum combine is three collectives (NCCL
+between GPUs):
 
 - sum    -> psum
 - max    -> pmax
@@ -93,7 +94,7 @@ def make_sharded_detect(
             onsets, tt_local, mask, available, fsmp, nsamples,
             n_nodes_real, tile=tile, node_offset=offset,
         )
-        return _ici_combine(mx, idx, sm, n_nodes_real, grid_axis)
+        return _combine_shards(mx, idx, sm, n_nodes_real, grid_axis)
 
     if batch_axis is None:
         in_specs = (P(), P(grid_axis, None), P(), P())
@@ -170,29 +171,6 @@ def _batch_specs(in_specs, out_specs, batch_axis, n_batched):
     return batched_in, batched_out
 
 
-def _batchify(body, n_batched):
-    """
-    Wrap a per-window shard-local body so its first ``n_batched``
-    arguments carry a leading (local) batch dimension: the body runs once
-    per window in a statically unrolled loop (safe for the Pallas kernel,
-    which has no vmap batching rule) and the three outputs stack along the
-    new leading axis.
-
-    """
-
-    def fn(*args):
-        batched, rest = args[:n_batched], args[n_batched:]
-        outs = [
-            body(*(b[j] for b in batched), *rest)
-            for j in range(batched[0].shape[0])
-        ]
-        return tuple(
-            jnp.stack([o[k] for o in outs]) for k in range(len(outs[0]))
-        )
-
-    return fn
-
-
 def make_sharded_detect_fused(
     mesh, position, transform, min_onset_value, fsmp, nsamples,
     n_nodes_real, tile=DEFAULT_TILE, grid_axis="grid", batch_axis=None,
@@ -240,7 +218,8 @@ def make_sharded_detect_fused(
     fn = _one
     if batch_axis is not None:
         in_specs, out_specs = _batch_specs(in_specs, out_specs, batch_axis, 3)
-        fn = _batchify(_one, 3)
+        # channels/chan_mask/slot_mask carry the window axis
+        fn = jax.vmap(_one, in_axes=(0, 0, 0) + (None,) * (len(in_specs) - 3))
 
     sharded = shard_map(
         fn, mesh=mesh, in_specs=in_specs, out_specs=out_specs,
@@ -253,7 +232,7 @@ def _local_reduce_combine(
     combined, slot_mask, available, tt_local, fsmp, nsamples, n_nodes_real,
     tile, grid_axis,
 ):
-    """Per-shard fused reduce + ICI collective combine (shared by the
+    """Per-shard fused reduce + collective combine (shared by the
     STA/LTA and kurtosis sharded windows)."""
 
     shard = jax.lax.axis_index(grid_axis)
@@ -262,10 +241,10 @@ def _local_reduce_combine(
         combined, tt_local, slot_mask, available, fsmp, nsamples,
         n_nodes_real, tile=tile, node_offset=offset,
     )
-    return _ici_combine(mx, idx, sm, n_nodes_real, grid_axis)
+    return _combine_shards(mx, idx, sm, n_nodes_real, grid_axis)
 
 
-def _ici_combine(mx, idx, sm, n_nodes_real, grid_axis):
+def _combine_shards(mx, idx, sm, n_nodes_real, grid_axis):
     """
     The cross-shard reduction shared by every sharded detect variant:
     pmax for the max, psum for the normalisation sum, and the argmax
@@ -281,147 +260,6 @@ def _ici_combine(mx, idx, sm, n_nodes_real, grid_axis):
     cand = jnp.where(mx == gmax, idx, big)
     gidx = jax.lax.pmin(cand, grid_axis)
     return gmax, gmax * n_nodes_real / gsum, gidx
-
-
-def pad_mxu_plan_for_mesh(kernel, n_shards):
-    """
-    Split a :class:`~quakemigrate_tpu.ops.pallas_migrate.PallasDetectMXU`
-    kernel's per-tile plan across mesh shards: the tile axis is padded with
-    dead tiles (valid=0, base/fine/perm=0) so it divides evenly. Returns
-    host-side ``(fine_t, base, valid, perm)`` ready to shard over their
-    leading axis. Dead tiles select real table rows but their coalescence
-    is zeroed by the valid mask, so they never win the combine.
-
-    """
-
-    plan = kernel.plan
-    fine = np.asarray(kernel._fine_host)
-    base = np.asarray(plan.base)
-    valid = np.asarray(plan.valid)
-    perm = np.asarray(plan.perm).reshape(plan.n_tiles, plan.tile)
-
-    pad = (-plan.n_tiles) % n_shards
-    if pad:
-        fine = np.pad(fine, ((0, pad), (0, 0), (0, 0)))
-        base = np.pad(base, ((0, pad), (0, 0)))
-        valid = np.pad(valid, ((0, pad), (0, 0), (0, 0)))
-        perm = np.pad(perm, ((0, pad), (0, 0)))
-    return fine, base, valid, perm.ravel()
-
-
-def _mxu_local_combine(combined, slot_mask, available, fine_t, base, valid,
-                       perm, fsmp, nsamples, n_nodes_real, tile, r_spans,
-                       sblk, grid_axis, interpret, precision):
-    """Per-shard MXU fused reduce + ICI collective combine. The plan's
-    ``perm`` stores GLOBAL flat node indices, so no shard offset is
-    needed before the cross-shard argmax."""
-
-    from quakemigrate_tpu.ops.pallas_migrate import mxu_detect_reduce
-
-    mx, idx, sm = mxu_detect_reduce(
-        combined, slot_mask, available, fine_t, base, valid, perm,
-        fsmp, nsamples, tile, r_spans, n_nodes_real, sblk=sblk,
-        interpret=interpret, precision=precision,
-    )
-    return _ici_combine(mx, idx, sm, n_nodes_real, grid_axis)
-
-
-def make_sharded_detect_fused_mxu(
-    mesh, position, transform, min_onset_value, fsmp, nsamples,
-    n_nodes_real, tile, r_spans, sblk=None, grid_axis="grid",
-    interpret=False, precision="i8x3", batch_axis=None,
-):
-    """
-    Mesh-sharded MXU twin of :func:`make_sharded_detect_fused`: each device
-    runs the Pallas one-hot-matmul migration over its slab of plan tiles
-    (from :func:`pad_mxu_plan_for_mesh`), with the onset front-end
-    replicated and the per-sample max/argmax/sum combine riding ICI.
-    Signature:
-    ``f(channels, chan_mask, slot_mask, nsta, nlta, fine_t, base, valid,
-    perm) -> (max_coa, max_norm_coa, max_idx)``.
-
-    ``batch_axis`` as in :func:`make_sharded_detect_fused`: channels/
-    chan_mask/slot_mask gain a leading window-batch dimension sharded over
-    that axis, windows run as a statically unrolled loop per device (the
-    Pallas kernel has no vmap batching rule).
-
-    """
-
-    from quakemigrate_tpu.ops.scan_window import fused_onsets
-
-    def _one(channels, chan_mask, slot_mask, nsta, nlta, fine_t, base,
-             valid, perm):
-        combined, available = fused_onsets(
-            channels, chan_mask, slot_mask, nsta, nlta,
-            position, transform, min_onset_value,
-        )
-        if batch_axis is not None:
-            available = jnp.maximum(available, 1.0)
-        return _mxu_local_combine(
-            combined, slot_mask, available, fine_t, base, valid, perm,
-            fsmp, nsamples, n_nodes_real, tile, r_spans, sblk, grid_axis,
-            interpret, precision,
-        )
-
-    in_specs = (
-        P(), P(), P(), P(), P(),
-        P(grid_axis, None, None), P(grid_axis, None),
-        P(grid_axis, None, None), P(grid_axis),
-    )
-    out_specs = (P(), P(), P())
-    fn = _one
-    if batch_axis is not None:
-        in_specs, out_specs = _batch_specs(in_specs, out_specs, batch_axis, 3)
-        fn = _batchify(_one, 3)
-
-    sharded = shard_map(
-        fn, mesh=mesh, in_specs=in_specs, out_specs=out_specs,
-        check_vma=False,
-    )
-    return jax.jit(sharded)
-
-
-def make_sharded_detect_fused_kurtosis_mxu(
-    mesh, nsmooth, taper_pad, min_onset_value, fsmp, nsamples,
-    n_nodes_real, tile, r_spans, sblk=None, grid_axis="grid",
-    interpret=False, precision="i8x3", batch_axis=None,
-):
-    """Kurtosis twin of :func:`make_sharded_detect_fused_mxu`. Signature:
-    ``f(channels, chan_mask, slot_mask, nkurt, fine_t, base, valid,
-    perm)``."""
-
-    from quakemigrate_tpu.ops.scan_window import fused_kurtosis_onsets
-
-    def _one(channels, chan_mask, slot_mask, nkurt, fine_t, base, valid,
-             perm):
-        combined, available = fused_kurtosis_onsets(
-            channels, chan_mask, slot_mask, nkurt, nsmooth, taper_pad,
-            min_onset_value,
-        )
-        if batch_axis is not None:
-            available = jnp.maximum(available, 1.0)
-        return _mxu_local_combine(
-            combined, slot_mask, available, fine_t, base, valid, perm,
-            fsmp, nsamples, n_nodes_real, tile, r_spans, sblk, grid_axis,
-            interpret, precision,
-        )
-
-    in_specs = (
-        P(), P(), P(), P(),
-        P(grid_axis, None, None), P(grid_axis, None),
-        P(grid_axis, None, None), P(grid_axis),
-    )
-    out_specs = (P(), P(), P())
-    fn = _one
-    if batch_axis is not None:
-        in_specs, out_specs = _batch_specs(in_specs, out_specs, batch_axis, 3)
-        fn = _batchify(_one, 3)
-
-    sharded = shard_map(
-        fn, mesh=mesh, in_specs=in_specs, out_specs=out_specs,
-        check_vma=False,
-    )
-    return jax.jit(sharded)
 
 
 def make_sharded_detect_fused_kurtosis(
@@ -458,7 +296,8 @@ def make_sharded_detect_fused_kurtosis(
     fn = _one
     if batch_axis is not None:
         in_specs, out_specs = _batch_specs(in_specs, out_specs, batch_axis, 3)
-        fn = _batchify(_one, 3)
+        # channels/chan_mask/slot_mask carry the window axis
+        fn = jax.vmap(_one, in_axes=(0, 0, 0) + (None,) * (len(in_specs) - 3))
 
     sharded = shard_map(
         fn, mesh=mesh, in_specs=in_specs, out_specs=out_specs,

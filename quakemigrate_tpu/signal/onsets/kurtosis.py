@@ -126,13 +126,9 @@ class KurtosisOnset(Onset):
             if not rows:
                 continue
 
-            # Host-consumed few-ms program: pin to the CPU backend (see
-            # util.host_cpu_jax; the detect hot path uses the fused
-            # on-device window instead).
-            with util.host_cpu_jax():
-                cf_rows = np.array(
-                    kurtosis_onset(np.stack(rows), nkurt, nsmooth)
-                )
+            cf_rows = np.array(
+                kurtosis_onset(np.stack(rows), nkurt, nsmooth)
+            )
             for station, sl in station_slices.items():
                 onsets_dict.setdefault(station, {}).update(
                     {phase: self._combine(cf_rows[sl], nkurt, timespan)}

@@ -133,67 +133,54 @@ def pairwise(iterable):
     return zip(left, right)
 
 
-def host_cpu_jax():
+# Default persistent compile cache: a fixed directory inside the checkout
+# (listed in .gitignore), so every process of one checkout shares it.
+DEFAULT_COMPILATION_CACHE_DIR = (
+    pathlib.Path(__file__).resolve().parent.parent / ".jax_cache"
+)
+
+
+def compilation_cache_dir(cache_dir=None):
     """
-    Context manager pinning subsequent JAX ops to the host CPU backend.
-
-    For few-ms programs whose output feeds host consumers (the
-    standalone STA/LTA and kurtosis onset functions), a remote/relayed
-    accelerator pays ~0.5 s of dispatch+fetch where the compute is
-    microseconds -- the detect hot path instead keeps onsets on-device
-    inside the fused window program.
+    The persistent compile cache directory to use:
+    ``$JAX_COMPILATION_CACHE_DIR`` when it is set (it always wins), else
+    ``cache_dir``, else :data:`DEFAULT_COMPILATION_CACHE_DIR`.
 
     """
 
-    import jax
-
-    return jax.default_device(jax.local_devices(backend="cpu")[0])
-
-
-# --- logging / timing --------------------------------------------------------
+    return str(
+        os.environ.get("JAX_COMPILATION_CACHE_DIR")
+        or cache_dir
+        or DEFAULT_COMPILATION_CACHE_DIR
+    )
 
 
 def enable_compilation_cache(cache_dir=None):
     """
-    Switch on JAX's persistent compilation cache and return the active
-    cache directory (or None when disabled).
-
-    First compiles of the fused detect window / locate migration are
-    20-80 s on TPU; with the cache, every later process that hits the
-    same program geometry loads the compiled executable from disk
-    instead. Resolution order for the directory: explicit ``cache_dir``
-    argument > a cache dir the user already configured on
-    ``jax.config`` > ``$JAX_COMPILATION_CACHE_DIR`` >
-    ``~/.cache/quakemigrate_tpu/jax_cache``. Set
-    ``QM_COMPILATION_CACHE=0`` to disable entirely. Idempotent.
+    Switch on JAX's persistent compilation cache in
+    :func:`compilation_cache_dir` and return that directory (None when the
+    directory cannot be created). Later processes that compile the same
+    detect window or locate migration load it from disk instead.
+    Idempotent.
 
     """
 
-    if os.environ.get("QM_COMPILATION_CACHE", "1").lower() in (
-        "0", "false", "off",
-    ):
-        return None
     import jax
 
+    cache_dir = compilation_cache_dir(cache_dir)
     try:
-        configured = jax.config.jax_compilation_cache_dir
-        if configured and cache_dir is None:
-            return configured
-        if cache_dir is None:
-            cache_dir = os.environ.get("JAX_COMPILATION_CACHE_DIR") or (
-                pathlib.Path.home() / ".cache" / "quakemigrate_tpu"
-                / "jax_cache"
-            )
-        cache_dir = str(cache_dir)
         pathlib.Path(cache_dir).mkdir(parents=True, exist_ok=True)
-        jax.config.update("jax_compilation_cache_dir", cache_dir)
-        # Persist anything that took real compile time; tiny programs
-        # recompile faster than they deserialise.
-        jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
-    except (OSError, AttributeError) as e:  # unwritable dir / old jax
+    except OSError as e:  # unwritable location
         logging.debug(f"compilation cache unavailable: {e}")
         return None
+    jax.config.update("jax_compilation_cache_dir", cache_dir)
+    # Persist anything that took real compile time; tiny programs
+    # recompile faster than they deserialise.
+    jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
     return cache_dir
+
+
+# --- logging / timing --------------------------------------------------------
 
 
 def logger(logstem, log, loglevel="info"):

@@ -143,20 +143,20 @@ def test_picks_parity(located_run):
         ours = pd.read_csv(ours_file)
 
         merged = golden.merge(
-            ours, on=["Station", "Phase"], suffixes=("_ref", "_tpu")
+            ours, on=["Station", "Phase"], suffixes=("_ref", "_ours")
         )
         assert len(merged) == len(golden)
 
         for _, row in merged.iterrows():
             ref_made = str(row["PickTime_ref"]) != "-1"
-            tpu_made = str(row["PickTime_tpu"]) != "-1"
+            ours_made = str(row["PickTime_ours"]) != "-1"
             if not ref_made:
                 continue
             total += 1
-            if not tpu_made:
+            if not ours_made:
                 continue
             diff = abs(
-                UTCDateTime(str(row["PickTime_tpu"]))
+                UTCDateTime(str(row["PickTime_ours"]))
                 - UTCDateTime(str(row["PickTime_ref"]))
             )
             if diff <= 2 / 250:  # within 2 onset samples

@@ -3,7 +3,7 @@
 Behavioral parity for the reference-shaped core bindings
 (quakemigrate_tpu.core.compat): scripts written against the reference's
 ``quakemigrate.core`` API (reference core/lib.py:52-285) must get the
-same numbers from the TPU build's wrappers — raw-onset in, 4-D float64
+same numbers from this package's wrappers — raw-onset in, 4-D float64
 map out — not just the same signatures (which tests/test_api_parity.py
 already pins).
 

@@ -153,12 +153,12 @@ def scanmseed_pair(tmp_path_factory, request):
     scan = QuakeScan(
         archive, lut, onset=_make_onset(position, transform),
         run_path=str(root / "runs"),
-        run_name="tpu_side", timestep=TIMESTEP, precision="double",
+        run_name="ours_side", timestep=TIMESTEP, precision="double",
         plot_event_summary=False,
     )
     scan.detect(START, END)
     ours = (
-        root / "runs" / "tpu_side" / "detect" / "scanmseed"
+        root / "runs" / "ours_side" / "detect" / "scanmseed"
         / "2021_049.scanmseed"
     )
 

@@ -78,8 +78,8 @@ def test_resumed_detect_matches_uninterrupted(tmp_path):
     scan = _scan(archive, lut, tmp_path, "whole")
     scan.detect(START, END)
 
-    # The batch-throughput marks benchmarks read (tools/day_e2e.py)
-    # cover every scanned window exactly once.
+    # The batch-throughput marks benchmarks read cover every scanned
+    # window exactly once.
     marks = scan.detect_batch_marks
     assert sum(n for n, _ in marks) == 5  # 25 s span / 5 s timestep
     assert all(secs > 0 for _, secs in marks)

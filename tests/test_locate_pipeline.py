@@ -5,7 +5,7 @@ results to the fully serial path: events are independent, so the
 worker-pool overlap (device migration of later events vs host
 location/picks/writes of earlier ones) may only change scheduling,
 never output. Guards the round-4 locate pipeline against shared-state
-regressions (the hardware-scale twin lives in tools/day_locate.py).
+regressions (chip_smoke.py runs the same path at full size on a GPU).
 
 """
 
@@ -128,8 +128,8 @@ def _locate(world, run_name, **kwargs):
     )
     scan.locate(trigger_file=str(trig_file))
 
-    # Per-event dispatch marks (read by tools/day_locate.py for
-    # percentile seconds/event) cover every located event exactly once:
+    # Per-event dispatch marks (read by benchmarks for percentile
+    # seconds/event) cover every located event exactly once:
     # dropped candidates never mark, located ones always do.
     out = root / "runs" / run_name / "locate"
     marks = scan.locate_event_marks

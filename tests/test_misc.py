@@ -738,32 +738,61 @@ def test_quakeml_structural_validity(tmp_path):
     assert descs == ["horizontal uncertainty"]
 
 
-def test_enable_compilation_cache(tmp_path, monkeypatch):
-    """Persistent-cache helper: explicit dir wins, later calls return the
-    configured dir (idempotent), QM_COMPILATION_CACHE=0 disables."""
+@pytest.mark.parametrize("env, arg, want", [
+    ("env", None, "env"),       # $JAX_COMPILATION_CACHE_DIR is used...
+    ("env", "arg", "env"),      # ...and wins over an explicit directory
+    (None, "arg", "arg"),       # unset: the explicit directory
+    (None, None, "default"),    # unset, no argument: inside the checkout
+])
+def test_enable_compilation_cache(tmp_path, monkeypatch, env, arg, want):
+    """Compile-cache resolution: the environment variable always wins;
+    otherwise an explicit directory, otherwise the fixed directory inside
+    the checkout (which .gitignore lists)."""
 
     import jax
 
     from quakemigrate_tpu import util
 
+    dirs = {"env": tmp_path / "env", "arg": tmp_path / "arg"}
+    default = tmp_path / "checkout" / ".jax_cache"
+    monkeypatch.setattr(util, "DEFAULT_COMPILATION_CACHE_DIR", default)
+    dirs["default"] = default
+    if env:
+        monkeypatch.setenv("JAX_COMPILATION_CACHE_DIR", str(dirs[env]))
+    else:
+        monkeypatch.delenv("JAX_COMPILATION_CACHE_DIR", raising=False)
+
     prior = jax.config.jax_compilation_cache_dir
     try:
-        target = tmp_path / "jc"
-        assert util.enable_compilation_cache(target) == str(target)
-        assert target.is_dir()
-        assert jax.config.jax_compilation_cache_dir == str(target)
-        # Default-arg call respects the already-configured dir rather
-        # than repointing at the home-directory default.
-        assert util.enable_compilation_cache() == str(target)
-        monkeypatch.setenv("QM_COMPILATION_CACHE", "0")
-        assert util.enable_compilation_cache() is None
+        got = util.enable_compilation_cache(dirs.get(arg))
+        assert got == str(dirs[want])
+        assert jax.config.jax_compilation_cache_dir == str(dirs[want])
+        assert dirs[want].is_dir()
+        assert not any(d.exists() for k, d in dirs.items() if k != want)
     finally:
         jax.config.update("jax_compilation_cache_dir", prior)
 
 
-def test_scan_compilation_cache_option(tmp_path):
+def test_default_compilation_cache_is_ignored_checkout_dir():
+    """The default cache directory sits inside the checkout and is listed
+    in .gitignore, so nothing is written around the checkout."""
+
+    import pathlib
+
+    from quakemigrate_tpu import util
+
+    root = pathlib.Path(util.__file__).resolve().parent.parent
+    cache = util.DEFAULT_COMPILATION_CACHE_DIR
+    assert cache.parent == root
+    ignored = (root / ".gitignore").read_text().split()
+    assert f"{cache.name}/" in ignored
+
+
+def test_scan_compilation_cache_option(tmp_path, monkeypatch):
     """QuakeScan(compilation_cache=<path>) routes through the helper;
     =False leaves jax config untouched."""
+
+    monkeypatch.delenv("JAX_COMPILATION_CACHE_DIR", raising=False)
 
     import jax
     import numpy as np
@@ -893,10 +922,12 @@ def test_covfit3d_matches_full_grid_formulation():
 
 
 def test_scan_option_and_span_validation(tmp_path):
-    """kernel typos raise (they previously fell back to XLA silently);
-    one-sided locate spans raise the documented RuntimeError (not a
-    UTCDateTime TypeError); zero-length detect spans raise TimeSpanException
-    up front (not an IndexError at the empty scanmseed write)."""
+    """Unknown keyword options (among them the removed ``kernel`` and
+    ``mxu_encoding``) are ignored, as the reference ignores them: they set
+    no attribute and select nothing. One-sided locate spans raise the
+    documented RuntimeError (not a UTCDateTime TypeError); zero-length
+    detect spans raise TimeSpanException up front (not an IndexError at
+    the empty scanmseed write)."""
 
     from types import SimpleNamespace
 
@@ -908,9 +939,11 @@ def test_scan_option_and_span_validation(tmp_path):
 
     onset = STALTAOnset(phases=["P"], sampling_rate=50)
     lut = SimpleNamespace(max_traveltime=1.0)
-    with pytest.raises(ValueError, match="kernel"):
-        QuakeScan("arc", lut, onset=onset, run_path=tmp_path,
-                  run_name="t", kernel="MXU")
+    scan = QuakeScan("arc", lut, onset=onset, run_path=tmp_path,
+                     run_name="t", kernel="mxu", mxu_encoding="i8x2",
+                     no_such_option=1)
+    for name in ("kernel", "mxu_encoding", "no_such_option"):
+        assert not hasattr(scan, name)
 
     onset = STALTAOnset(phases=["P"], sampling_rate=50)
     scan = QuakeScan("arc", lut, onset=onset, run_path=tmp_path,

@@ -350,167 +350,6 @@ def test_fused_kurtosis_mesh_matches_single(setup):
     assert np.abs(a - b).max() <= 1
 
 
-def test_sharded_fused_mxu_op_matches_single_device_op():
-    """
-    Op-level: the mesh-sharded Pallas MXU fused window (interpret mode on
-    the CPU mesh) matches the single-device XLA fused window, including
-    dead plan tiles padded in to fill the shard count.
-
-    """
-
-    from quakemigrate_tpu.ops.pallas_migrate import PallasDetectMXU
-    from quakemigrate_tpu.ops.scan_window import detect_window_fused
-    from quakemigrate_tpu.parallel import (
-        make_sharded_detect_fused_mxu,
-        pad_mxu_plan_for_mesh,
-    )
-
-    rng = np.random.default_rng(11)
-    nx, ny, nz = 8, 6, 5
-    n_slots, c_max, fsmp, nsamples, lsmp = 6, 3, 32, 100, 48
-    t = fsmp + nsamples + lsmp
-    channels = rng.normal(size=(n_slots, c_max, t)).astype(np.float32)
-    chan_mask = np.ones((n_slots, c_max), dtype=np.float32)
-    chan_mask[2, 1:] = 0.0
-    slot_mask = np.ones(n_slots, dtype=np.float32)
-    slot_mask[4] = 0.0
-    nsta = np.full(n_slots, 5, dtype=np.int32)
-    nlta = np.full(n_slots, 21, dtype=np.int32)
-
-    x, y, z = np.meshgrid(
-        np.arange(nx), np.arange(ny), np.arange(nz), indexing="ij"
-    )
-    tts = [
-        np.rint(
-            np.sqrt((x - rng.uniform(0, nx)) ** 2
-                    + (y - rng.uniform(0, ny)) ** 2 + z**2) * 3
-        ).astype(np.int32)
-        for _ in range(n_slots)
-    ]
-    tt = np.clip(np.stack(tts, -1).reshape(-1, n_slots), 0, lsmp)
-    n_nodes = nx * ny * nz
-
-    ref = detect_window_fused(
-        channels, chan_mask, slot_mask, nsta, nlta, tt,
-        "classic", "energy", 0.5, fsmp, nsamples,
-        n_nodes_real=n_nodes, tile=32,
-    )
-
-    kernel = PallasDetectMXU(
-        tt, (nx, ny, nz), fsmp, nsamples, tile=64, brick_shape=(4, 4, 4)
-    )
-    mesh = make_mesh(jax.devices())
-    # 240 nodes -> 4 live 64-node tiles -> padded with 4 dead tiles to
-    # split one per shard across the 8-device mesh.
-    plan_arrays = pad_mxu_plan_for_mesh(kernel, mesh.shape["grid"])
-    assert plan_arrays[0].shape[0] % mesh.shape["grid"] == 0
-
-    fn = make_sharded_detect_fused_mxu(
-        mesh, "classic", "energy", 0.5, fsmp, nsamples,
-        n_nodes_real=n_nodes, tile=kernel.plan.tile, r_spans=kernel.r_spans,
-        interpret=True,
-    )
-    # NOTE: interpret=True (not pltpu.force_tpu_interpret_mode) -- the
-    # force context deadlocks under shard_map on the multi-device CPU mesh.
-    out = fn(channels, chan_mask, slot_mask, nsta, nlta, *plan_arrays)
-
-    np.testing.assert_allclose(np.asarray(ref[0]), np.asarray(out[0]),
-                               rtol=2e-5)
-    np.testing.assert_allclose(np.asarray(ref[1]), np.asarray(out[1]),
-                               rtol=2e-5)
-    assert (np.asarray(ref[2]) == np.asarray(out[2])).mean() > 0.99
-
-
-def test_fused_mesh_mxu_pipeline_matches_single(setup):
-    """QuakeScan(mesh=..., kernel='mxu'): the sharded MXU fused window
-    through the whole detect pipeline vs the single-device XLA run."""
-
-    root, archive, lut = setup
-
-    def run(name, mesh, kernel):
-        onset = STALTAOnset(position="classic", sampling_rate=SPS)
-        onset.phases = ["P", "S"]
-        onset.bandpass_filters = {"P": [1, 12, 2], "S": [1, 12, 2]}
-        onset.sta_lta_windows = {"P": [0.2, 1.0], "S": [0.2, 1.0]}
-        scan = QuakeScan(
-            archive, lut, onset=onset, run_path=str(root / "runs"),
-            run_name=name, marginal_window=1.0, timestep=5.0, mesh=mesh,
-            tile=64, fused_detect=True, kernel=kernel,
-            # Pin the tight 3-word encoding: this test checks the
-            # MXU-vs-XLA PIPELINE plumbing at <=1 int32 count, below the
-            # default i8x2 encoding's documented 2e-4 error.
-            mxu_encoding="i8x3",
-        )
-        scan.detect("2021-02-18T12:00:20.0", "2021-02-18T12:00:40.0")
-        return (
-            root / "runs" / name / "detect" / "scanmseed"
-            / "2021_049.scanmseed"
-        )
-
-    single = run("mxu_ref_single", None, "xla")
-    sharded = run("mxu_mesh", make_mesh(jax.devices()), "mxu")
-
-    from quakemigrate_tpu.seis import read
-
-    st_s = read(str(single))
-    st_m = read(str(sharded))
-    # Argmax locations must agree exactly; the coalescence channels may
-    # differ by one int32 count where the bf16 hi/lo rounding lands on a
-    # quantisation edge.
-    for station in ("X", "Y", "Z"):
-        np.testing.assert_array_equal(
-            st_s.select(station=station)[0].data,
-            st_m.select(station=station)[0].data,
-            err_msg=station,
-        )
-    for station in ("COA", "COA_N"):
-        a = st_s.select(station=station)[0].data.astype(np.int64)
-        b = st_m.select(station=station)[0].data.astype(np.int64)
-        assert np.abs(a - b).max() <= 1, station
-
-
-def test_forced_mxu_kernel_single_device_cpu(setup):
-    """kernel='mxu' forced on a CPU host runs in interpret mode (it used
-    to crash with 'Only interpret mode is supported on CPU backend') and
-    matches the XLA kernel's scanmseed."""
-
-    root, archive, lut = setup
-
-    def run(name, kernel):
-        onset = STALTAOnset(position="classic", sampling_rate=SPS)
-        onset.phases = ["P", "S"]
-        onset.bandpass_filters = {"P": [1, 12, 2], "S": [1, 12, 2]}
-        onset.sta_lta_windows = {"P": [0.2, 1.0], "S": [0.2, 1.0]}
-        scan = QuakeScan(
-            archive, lut, onset=onset, run_path=str(root / "runs"),
-            run_name=name, marginal_window=1.0, timestep=5.0, tile=64,
-            fused_detect=True, kernel=kernel, mxu_encoding="i8x3",
-        )
-        scan.detect("2021-02-18T12:00:20.0", "2021-02-18T12:00:30.0")
-        return (
-            root / "runs" / name / "detect" / "scanmseed"
-            / "2021_049.scanmseed"
-        )
-
-    xla = run("forced_xla", "xla")
-    mxu = run("forced_mxu", "mxu")
-
-    from quakemigrate_tpu.seis import read
-
-    st_x = read(str(xla))
-    st_m = read(str(mxu))
-    for station in ("X", "Y", "Z"):
-        np.testing.assert_array_equal(
-            st_x.select(station=station)[0].data,
-            st_m.select(station=station)[0].data,
-            err_msg=station,
-        )
-    for station in ("COA", "COA_N"):
-        a = st_x.select(station=station)[0].data.astype(np.int64)
-        b = st_m.select(station=station)[0].data.astype(np.int64)
-        assert np.abs(a - b).max() <= 1, station
-
-
 def test_sharded_combine_matches_single_device_large_random():
     """
     The cross-shard max/argmax(psum-tie-break)/sum combine must reproduce
@@ -607,42 +446,29 @@ def test_mesh_kernel_cache_rekeys_on_geometry_change(setup):
         assert got.read_bytes() == want.read_bytes(), f"fused={fused}"
 
 
-def test_mesh_kernel_auto_default_selection(setup, monkeypatch):
-    """kernel="auto" + mesh uses the sharded MXU fused window on real TPU
-    backends (hardware-validated in tests_tpu/) and stays on XLA for
-    virtual CPU meshes and explicit double precision."""
+def test_mesh_traveltime_table_is_sharded(setup):
+    """With a mesh, the traveltime table is uploaded as one slab per
+    "grid" device (whole tiles each); no device holds the whole table."""
 
     root, archive, lut = setup
 
-    def make_scan(**kwargs):
-        onset = STALTAOnset(position="classic", sampling_rate=SPS)
-        onset.phases = ["P", "S"]
-        onset.bandpass_filters = {"P": [1, 12, 2], "S": [1, 12, 2]}
-        onset.sta_lta_windows = {"P": [0.2, 1.0], "S": [0.2, 1.0]}
-        defaults = dict(
-            mesh=make_mesh(jax.devices()), tile=64, fused_detect=True,
-        )
-        defaults.update(kwargs)
-        return QuakeScan(
-            archive, lut, onset=onset, run_path=str(root / "runs"),
-            run_name="autosel", marginal_window=1.0, timestep=5.0,
-            **defaults,
-        )
+    onset = STALTAOnset(position="classic", sampling_rate=SPS)
+    onset.phases = ["P", "S"]
+    mesh = make_mesh(jax.devices()[:4])
+    scan = QuakeScan(
+        archive, lut, onset=onset, run_path=str(root / "runs"),
+        run_name="sharded_tt", marginal_window=1.0, timestep=5.0,
+        mesh=mesh, tile=64,
+    )
+    scan._build_device_state()
 
-    # Virtual CPU mesh: auto keeps XLA; forced mxu opts in (interpret).
-    assert not make_scan()._mxu_mesh_active
-    assert make_scan(kernel="mxu")._mxu_mesh_active
-
-    # Pretend-TPU backend: auto flips to the sharded MXU...
-    monkeypatch.setattr(jax, "default_backend", lambda: "tpu")
-    assert make_scan()._mxu_mesh_active
-    # ...except for double precision, non-fused meshes, or forced xla.
-    assert not make_scan(precision="double")._mxu_mesh_active
-    assert not make_scan(fused_detect=False)._mxu_mesh_active
-    assert not make_scan(kernel="xla")._mxu_mesh_active
-    # No mesh at all: the single-device property governs instead.
-    assert not make_scan(mesh=None)._mxu_mesh_active
-    assert make_scan(mesh=None)._mxu_active
+    table = scan._device_tt
+    shards = table.addressable_shards
+    assert {s.device for s in shards} == set(mesh.devices.flat)
+    rows = table.shape[0] // 4
+    assert rows % 64 == 0 and rows * 4 >= scan._n_nodes
+    for shard in shards:
+        assert shard.data.shape == (rows, table.shape[1])
 
 
 def test_mesh_locate_matches_single_device(setup, tmp_path):

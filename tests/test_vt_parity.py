@@ -237,16 +237,16 @@ def test_vt_picks_agree(located_run):
         golden = pd.read_csv(golden_file)
         ours = pd.read_csv(ours_file)
         merged = golden.merge(
-            ours, on=["Station", "Phase"], suffixes=("_ref", "_tpu")
+            ours, on=["Station", "Phase"], suffixes=("_ref", "_ours")
         )
         for _, row in merged.iterrows():
             if str(row["PickTime_ref"]) == "-1":
                 continue
             total += 1
-            if str(row["PickTime_tpu"]) == "-1":
+            if str(row["PickTime_ours"]) == "-1":
                 continue
             diff = abs(
-                UTCDateTime(str(row["PickTime_tpu"]))
+                UTCDateTime(str(row["PickTime_ours"]))
                 - UTCDateTime(str(row["PickTime_ref"]))
             )
             if diff <= 0.1:  # 5 samples at 50 Hz
@@ -279,17 +279,17 @@ def test_vt_amplitude_structural_parity(located_run):
         merged = (
             pd.read_csv(golden_file, index_col=0)
             .join(pd.read_csv(ours_file, index_col=0),
-                  lsuffix="_ref", rsuffix="_tpu")
-            .dropna(subset=["S_amp_ref", "S_amp_tpu"])
+                  lsuffix="_ref", rsuffix="_ours")
+            .dropna(subset=["S_amp_ref", "S_amp_ours"])
         )
         for trace_id, row in merged.iterrows():
             rows.append(
                 {
                     "station": trace_id.split(".")[1],
-                    "damp": np.log10(row["S_amp_tpu"] / row["S_amp_ref"]),
-                    "dgain": row["S_filter_gain_tpu"] - row["S_filter_gain_ref"],
+                    "damp": np.log10(row["S_amp_ours"] / row["S_amp_ref"]),
+                    "dgain": row["S_filter_gain_ours"] - row["S_filter_gain_ref"],
                     "dtime": abs(
-                        UTCDateTime(str(row["S_time_tpu"]))
+                        UTCDateTime(str(row["S_time_ours"]))
                         - UTCDateTime(str(row["S_time_ref"]))
                     ),
                 }

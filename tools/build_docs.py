@@ -130,7 +130,7 @@ def page(title, body, depth=0):
         "<title>%s — quakemigrate_tpu</title>"
         "<link rel='stylesheet' href='%sstyle.css'></head><body>"
         "<div class='layout'>%s<main>%s"
-        "<footer>quakemigrate_tpu — TPU-native waveform migration."
+        "<footer>quakemigrate_tpu — waveform migration on GPUs."
         " Static site built by tools/build_docs.py.</footer>"
         "</main></div></body></html>"
     ) % (html.escape(title), rel, nav, body)

@@ -15,11 +15,11 @@ and cluster recall must be 100% with zero false triggers — so the
 triggered-vs-planted shortfall is fully explained rather than left as
 an unexplained deficit.
 
-Writes CATALOGUE_SCALE.json at the repo root and a summary to stdout.
+Writes .work/catalogue/result.json and a summary to stdout.
 Exits non-zero if recall < 100% or the trigger count is not explained by
 the merged clusters.
 
-Run: PYTHONPATH=/root/repo:$PYTHONPATH python tools/catalogue_scale.py
+Run: PYTHONPATH=.:$PYTHONPATH python tools/catalogue_scale.py
 """
 
 import json
@@ -33,7 +33,7 @@ import numpy as np
 import pandas as pd
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
-WORLD = pathlib.Path("/tmp/qm_catalogue")
+WORLD = ROOT / ".work" / "catalogue"
 
 SPS = 50.0
 N_DAYS = 30
@@ -233,7 +233,7 @@ def main():
         "peak_rss_mb": round(peak_mb, 1),
         "timestamp": time.strftime("%Y-%m-%dT%H:%M:%SZ", time.gmtime()),
     }
-    (ROOT / "CATALOGUE_SCALE.json").write_text(json.dumps(record, indent=1))
+    (WORLD / "result.json").write_text(json.dumps(record, indent=1))
     print(json.dumps(record, indent=1))
 
     ok = (

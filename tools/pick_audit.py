@@ -1,7 +1,7 @@
 # -*- coding: utf-8 -*-
 """
 Classify every pick-parity miss against the reference golden files
-(VERDICT r3 item 6): for each reference pick that the TPU build does not
+(VERDICT r3 item 6): for each reference pick that this package does not
 reproduce within tolerance, record WHY -- so the parity thresholds in
 tests/test_benchmark_parity.py (>=90% within 2 samples) and
 tests/test_vt_parity.py (>=75% within 0.1 s) can be replaced by an
@@ -25,7 +25,7 @@ Categories:
 
 Writes PICK_AUDIT.json at the repo root and prints the table. Run
 (CPU, ~4 min):
-    PYTHONPATH=/root/repo:$PYTHONPATH python tools/pick_audit.py
+    PYTHONPATH=.:$PYTHONPATH python tools/pick_audit.py
 """
 
 import json
@@ -46,41 +46,41 @@ REF_UNSTABLE = ("20140824000443260",)
 
 def _classify(row, tol_s, sps):
     ref_made = str(row["PickTime_ref"]) != "-1"
-    tpu_made = str(row["PickTime_tpu"]) != "-1"
+    ours_made = str(row["PickTime_ours"]) != "-1"
     if not ref_made:
         return None  # only reference-made picks count toward parity
-    if not tpu_made:
+    if not ours_made:
         # -1 on our side: SNR boundary if the reference's SNR is small
         ref_snr = float(row["SNR_ref"])
         return {
             "kind": (
                 "snr_boundary" if ref_snr < 2.0 * 1.2 else "unexplained"
             ),
-            "detail": f"tpu no pick; ref SNR {ref_snr:.2f}",
+            "detail": f"no pick here; ref SNR {ref_snr:.2f}",
         }
 
     from quakemigrate_tpu.seis import UTCDateTime
 
     diff = abs(
-        UTCDateTime(str(row["PickTime_tpu"]))
+        UTCDateTime(str(row["PickTime_ours"]))
         - UTCDateTime(str(row["PickTime_ref"]))
     )
     if diff <= tol_s:
         return "match"
     n_samp = diff * sps
     res_ref = abs(float(row["Residual_ref"]))
-    res_tpu = abs(float(row["Residual_tpu"]))
+    res_ours = abs(float(row["Residual_ours"]))
     if n_samp <= 5:
         return {
             "kind": "small_shift",
             "detail": f"{n_samp:.1f} samples apart "
-                      f"(|res| ref {res_ref:.3f} vs tpu {res_tpu:.3f} s)",
+                      f"(|res| ref {res_ref:.3f} vs ours {res_ours:.3f} s)",
         }
     return {
-        "kind": "secondary_peak" if res_tpu <= res_ref + 0.05
+        "kind": "secondary_peak" if res_ours <= res_ref + 0.05
         else "unexplained",
         "detail": f"{n_samp:.1f} samples apart; |residual| ref "
-                  f"{res_ref:.3f} s vs tpu {res_tpu:.3f} s",
+                  f"{res_ref:.3f} s vs ours {res_ours:.3f} s",
     }
 
 
@@ -95,7 +95,7 @@ def audit(golden_dir, ours_dir, tol_s, sps, label):
         golden = pd.read_csv(golden_file)
         ours = pd.read_csv(ours_file)
         merged = golden.merge(
-            ours, on=["Station", "Phase"], suffixes=("_ref", "_tpu")
+            ours, on=["Station", "Phase"], suffixes=("_ref", "_ours")
         )
         for _, row in merged.iterrows():
             outcome = _classify(row, tol_s, sps)
